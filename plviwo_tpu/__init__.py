@@ -1,17 +1,16 @@
-"""plviwo_tpu — a TPU-native point-line visual-inertial-wheel odometry framework.
+"""plviwo_tpu — a JAX point-line visual-inertial-wheel odometry framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of PL-VIWO
+A from-scratch JAX/XLA re-design of the capabilities of PL-VIWO
 (Happy-ZZX/PL-VIWO, a MINS/OpenVINS-derived sliding-window MSCKF): batched
-Pallas image kernels for point/line front-ends, fused jitted linear algebra
+fixed-shape image ops for point/line front-ends, fused jitted linear algebra
 for the EKF filter core, and a `shard_map`-based multi-host layer for
 sequence-sharded replay and distributed Schur-complement bundle adjustment.
 
-The filter core runs in float64 (small matrices; XLA emulates f64 on TPU at
-negligible cost for ~300x300 covariances), image kernels run in f32/bf16 on
-the MXU/VPU.
+The filter core runs in float64 (small matrices, ~300x300 covariances);
+the image front-end and the per-feature camera tensors run in float32.
 
 Layer map (mirrors SURVEY.md section 1):
-  ops/       L0  math substrate: JPL Lie ops, camera models, chi2, Pallas kernels
+  ops/       L0  math substrate: JPL Lie ops, camera models, chi2, image ops
   core/      L2  filter core: state layout, EKF primitives, propagation, interpolation
   update/    L3  measurement updaters: camera (points+lines), wheel, GPS
   init/      L4  state initialization (static IMU, IMU+wheel)

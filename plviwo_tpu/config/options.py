@@ -54,8 +54,8 @@ class CameraOptions:
     max_lines: int = 40
     sigma_pix_line: float = 1.5
     # fused image engine: dtype of the heavy per-feature camera tensors
-    # (triangulation/Jacobians/gate).  "f32" is the TPU-fast default; "f64"
-    # trades throughput for long-run accuracy (see BASELINE.md stress A/B)
+    # (triangulation/Jacobians/gate).  "f32" is the default; "f64" is the
+    # long-run accuracy option (see BASELINE.md stress A/B)
     fused_dtype: str = "f32"
     # fused image engine: observation-history depth per track slot.  A
     # track harvests when it dies or fills O obs; larger O = longer
@@ -63,8 +63,8 @@ class CameraOptions:
     # window) at linearly more row-build work.  12 ~ the 1 s / 10 Hz clone
     # window; measured stress ATE 1.22 (O=8) -> 1.02 m (O=12) at 128 slots
     fused_max_obs: int = 12
-    # fused image engine: gather-free shifted-MAC LK (True, TPU-fast) vs
-    # the gather formulation (False, no drift budget — quality A/B)
+    # fused image engine: gather-free shifted-MAC LK (True, the default) vs
+    # the gather formulation (False, no drift budget)
     fused_lk_conv: bool = True
     # point-line-coupled rows (reference ships use_PLC=false,
     # UpdaterCamera.cpp PLC flag; LineHelper.cpp:879-890)
@@ -166,7 +166,7 @@ class EstimatorOptions:
     use_imu_res: bool = False
     use_imu_cov: bool = False
     use_pol_cov: bool = False
-    # TPU-first joint multi-sensor update: build the point/line/wheel rows
+    # Joint multi-sensor update: build the point/line/wheel rows
     # at the same pre-update state and apply ONE compress + EKF update per
     # frame (the fused_step_full design), instead of the reference's
     # sequential per-sensor updates (UpdaterCamera then lines then wheel,

@@ -14,7 +14,7 @@ with first-order bias Jacobians (J_q = dR/dbg, J_a = dalpha/dba,
 J_b = dalpha/dbg, H_a = dbeta/dba, H_b = dbeta/dbg) so the preintegral can be
 re-linearized without re-integration when the bias estimate moves.
 
-TPU shaping: one `lax.scan` over the padded IMU window computes the whole
+Device shaping: one `lax.scan` over the padded IMU window computes the whole
 stack of per-time CPI states in a single dispatch; dt = 0 padding steps are
 identities.
 """

@@ -6,16 +6,15 @@ state and the `fused_frame` step that runs, in a single jitted dispatch:
 
   hist-equalize -> pyramid -> pyramidal LK -> RANSAC gate -> grid re-detect
   -> per-slot observation histories -> track harvest
-  -> line detect (gather-free run-length fields at half resolution;
-     round-5 default after the on-chip A/B: 10.0 vs 717.8 ms per B=64
-     batch at ATE parity — the sequential anchor walk remains available
-     via line_runlen=False) -> device NMS
+  -> line detect (gather-free run-length fields at half resolution by
+     default; the sequential anchor walk remains available via
+     line_runlen=False) -> device NMS
   -> point attachment -> shared-point line matching (as a matmul)
   -> line observation histories -> line harvest
   -> IMU propagate -> marginalize -> clone -> point/line/wheel rows
   -> ONE joint EKF update.
 
-TPU-first identity model: a feature IS its slot.  The reference keeps
+Fixed-shape identity model: a feature IS its slot.  The reference keeps
 `std::map<id, Feature>` databases and matches lines by shared point *ids*
 (TrackLSD.cpp:368-433); here a tracked point occupies a fixed slot for its
 lifetime, so "shared ids" becomes a boolean attach-matrix product
@@ -37,14 +36,13 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
-
 from ..ops import cam as cam_ops
 from ..ops import image as image_ops
 from ..ops import klt as klt_ops
 from ..ops import line_detect as line_ops
 from ..update import wheel as wheel_up
 from . import ekf, propagator
+from .pytree import pytree_dataclass
 from .state import FilterState, newest_clone_slot
 from .step import (_auto_marginalize, _camera_msckf_rows, _gps_rows,
                    _line_msckf_rows, _rows_to_gram, _wheel_rows)
@@ -54,7 +52,7 @@ F64 = jnp.float64
 I32 = jnp.int32
 
 
-@struct.dataclass
+@pytree_dataclass
 class TrackState:
     """Device-resident front-end state (all fixed shapes; one per sequence)."""
 
@@ -186,7 +184,7 @@ def _segment_nms(segs, lengths, valid, min_length, ang_tol=0.10,
     its suppressed fragments by extending its endpoints to the cluster's
     longitudinal span (projected onto the survivor's direction) — long
     structural lines stay long instead of fragmenting.  O(A^2) masked
-    pairwise test — A is a few hundred, trivially small for the VPU.
+    pairwise test — A is a few hundred, trivially small.
     Returns (merged segs (A, 4), keep (A,) bool, length (A,))."""
     d = segs[:, 2:] - segs[:, :2]
     L = jnp.linalg.norm(d, axis=-1)
@@ -268,7 +266,7 @@ def _attach_points(segs, seg_valid, uv, pt_valid, max_dist=5.0,
     "levels", "half", "iters", "grid_x", "grid_y", "min_px_dist",
     "min_track", "min_track_line", "cam_model", "line_grid",
     "line_anchors", "line_steps", "min_line_length", "lk_conv",
-    "line_runlen", "lk_pallas", "use_stereo"))
+    "line_runlen", "use_stereo"))
 def track_frame(
     ts: TrackState, img, cam_k, t_new, slot_new,
     levels: int = 3, half: int = 7, iters: int = 6,
@@ -276,7 +274,7 @@ def track_frame(
     min_track: int = 4, min_track_line: int = 3, cam_model: int = 0,
     line_grid: int = 16, line_anchors: int = 192, line_steps: int = 96,
     min_line_length: float = 30.0, lk_conv: bool = True,
-    line_runlen: bool = True, lk_pallas: bool = False,
+    line_runlen: bool = True,
     use_stereo: bool = False, img_r=None, cam_k_r=None,
     max_y_diff: float = 6.0,
 ):
@@ -299,13 +297,9 @@ def track_frame(
     prev_pyr = (ts.pyr0, ts.pyr1, ts.pyr2)
 
     # ---- temporal LK + RANSAC ----
-    # lk_pallas: VMEM-resident Pallas iteration kernel (ops/lk_kernel.py);
-    # lk_conv: gather-free shifted-MAC LK (XLA; see ops/klt.py
+    # lk_conv: gather-free shifted-MAC LK (see ops/klt.py
     # pyramidal_lk_conv); else the reference gather formulation
-    if lk_pallas:
-        from ..ops.lk_kernel import pyramidal_lk_pallas as lk_fn
-    else:
-        lk_fn = klt_ops.pyramidal_lk_conv if lk_conv else klt_ops.pyramidal_lk
+    lk_fn = klt_ops.pyramidal_lk_conv if lk_conv else klt_ops.pyramidal_lk
     uv_next, ok = lk_fn(
         prev_pyr, tuple(pyr), ts.uv, ts.valid & ts.has_prev, levels, half,
         iters)
@@ -522,10 +516,10 @@ def _liveness(state: FilterState, hist_slot, hist_t, obs_mask):
 
 
 @partial(jax.jit, static_argnames=(
-    "model", "window_size", "cam_dtype", "wheel_type", "use_pallas",
+    "model", "window_size", "cam_dtype", "wheel_type",
     "min_track", "min_track_line", "levels", "half", "iters",
     "grid_x", "grid_y", "min_px_dist", "line_anchors", "line_steps",
-    "use_wheel", "use_lines", "lk_conv", "line_runlen", "lk_pallas",
+    "use_wheel", "use_lines", "lk_conv", "line_runlen",
     "use_gps", "use_dynamic", "use_stereo"))
 def fused_frame(
     state: FilterState, ts: TrackState, img,
@@ -533,13 +527,13 @@ def fused_frame(
     wheel_t, wheel_m1, wheel_m2, wheel_valid,
     gravity, sigmas, sigma_pix, chi2_mult, sigma_line, wheel_noise,
     model: int = 0, window_size: float = 1.0, cam_dtype=jnp.float32,
-    wheel_type: int = wheel_up.W3D_ANG, use_pallas: bool = False,
+    wheel_type: int = wheel_up.W3D_ANG,
     min_track: int = 4, min_track_line: int = 3,
     levels: int = 3, half: int = 7, iters: int = 6,
     grid_x: int = 16, grid_y: int = 12, min_px_dist: int = 10,
     line_anchors: int = 192, line_steps: int = 96,
     use_wheel: bool = True, use_lines: bool = True, lk_conv: bool = True,
-    line_runlen: bool = True, lk_pallas: bool = False,
+    line_runlen: bool = True,
     use_gps: bool = False, gps_t=None, gps_p=None, gps_valid=None,
     sigma_gps: float = 3.0, gps_chi2_mult: float = 1.0,
     use_dynamic: bool = False, do_clone=None,
@@ -585,7 +579,7 @@ def fused_frame(
         min_px_dist=min_px_dist, min_track=min_track,
         min_track_line=min_track_line, cam_model=model,
         line_anchors=line_anchors, line_steps=line_steps, lk_conv=lk_conv,
-        line_runlen=line_runlen, lk_pallas=lk_pallas,
+        line_runlen=line_runlen,
         use_stereo=use_stereo, img_r=img_r,
         cam_k_r=state.cam_k[1 % state.cam_k.shape[0]])
 
@@ -620,13 +614,11 @@ def fused_frame(
     else:
         G, c, _, metrics = _camera_msckf_rows(
             state, p_uv.astype(F64), p_uvn.astype(F64), p_slot, p_mask,
-            sigma_pix, chi2_mult, model, cam_dtype, use_pallas=use_pallas,
-            as_gram=True)
+            sigma_pix, chi2_mult, model, cam_dtype, as_gram=True)
     if use_lines:
         G2, c2, _, lines_accepted = _line_msckf_rows(
             state, l_uv.astype(F64), l_uvn.astype(F64), l_slot, l_mask,
-            sigma_line, chi2_mult, cam_dtype=cam_dtype, use_pallas=use_pallas,
-            as_gram=True)
+            sigma_line, chi2_mult, cam_dtype=cam_dtype, as_gram=True)
         G, c = G + G2, c + c2
     else:
         lines_accepted = jnp.array(0, dtype=jnp.int32)

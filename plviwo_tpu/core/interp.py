@@ -62,7 +62,7 @@ def polynomial_pose(q0, p0, qs, ps, dts, dt_eval):
 
     # Vandermonde in *normalized* time tau = dt/dts[-1] (condition number stays
     # O(1) for any clone spacing); (n,n) with entries tau_i^(j+1)
-    # (QR-based inverse: TPU has no f64 LU kernels, see ops/linalg.py)
+    # (QR-based inverse, see ops/linalg.inv_small)
     from ..ops.linalg import inv_small
 
     scale = jnp.maximum(dts[-1], 1e-9)

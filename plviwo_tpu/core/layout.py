@@ -1,7 +1,7 @@
 """Fixed error-state layout for the sliding-window filter (L2).
 
 The reference (`PL-VIWO/src/state/State.h:163-229`) grows/shrinks a dense
-covariance as clones and calibration states come and go.  On TPU everything
+covariance as clones and calibration states come and go.  Everything
 under jit must have static shapes, so the layout is *fixed at configuration
 time*: the covariance is a (D, D) matrix whose block structure never changes,
 clones live in a ring buffer of `n_clones` slots with a validity mask, and

@@ -217,7 +217,7 @@ def propagate_arrays(
     (dt = 0) for padding.  imu_w/imu_a: (N, 3).  The first entry must sit at
     the current state time (host pre-interpolates boundaries).
 
-    TPU shaping: NO sequential recursion at all.  The RK4 mean decomposes
+    Device shaping: NO sequential recursion at all.  The RK4 mean decomposes
     into frame-independent per-interval increments (`_rk4_local_increments`)
     composed by an associative quaternion prefix scan + cumulative sums, and
     the per-step 15x15 transition/noise matrices are built in one batched
@@ -276,8 +276,7 @@ def propagate_arrays(
     # covariance, so ~1e-6 relative error (accumulated f32 rounding over the
     # log2(N) tree of transition matmuls) sits below the model error and the
     # f32 PSD jitter floor of the update path (the mean above stays f64).
-    # TPU f64 is emulated; this is most of the propagate cost at f64.  The
-    # position/velocity cancellation terms are formed HERE in f64 first.
+    # This is most of the propagate cost at f64.  The position/velocity cancellation terms are formed HERE in f64 first.
     f32 = jnp.float32
     dp_terms = (ps - p_start - v_start * dts[:, None]
                 + 0.5 * gravity[None, :] * (dts**2)[:, None])

@@ -1,4 +1,4 @@
-"""Filter state container (L2) — a flax.struct pytree with static shapes.
+"""Filter state container (L2) — a frozen pytree dataclass with static shapes.
 
 Functional redesign of the reference `State` (`PL-VIWO/src/state/State.h:34-291`):
 instead of a mutable map of heap-allocated `ov_type::Type` variables plus a
@@ -6,9 +6,8 @@ resizable covariance, the state is an immutable pytree of fixed-shape arrays.
 Clones live in a ring buffer with a validity mask; all quantities the EKF
 touches have a fixed index in the (D, D) covariance (see `layout.StateLayout`).
 
-All arrays are float64: the covariance algebra needs the dynamic range, the
-matrices are tiny (~hundreds), and XLA's f64 emulation on TPU is negligible at
-this size next to the image front-end.
+All arrays are float64: the covariance algebra needs the dynamic range, and
+the matrices are tiny (~hundreds).
 
 FEJ (first-estimates Jacobian) values are carried alongside the estimates:
 propagation overwrites both, EKF updates move only the estimate — mirroring
@@ -18,14 +17,14 @@ propagation overwrites both, EKF updates move only the estimate — mirroring
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
 from .layout import StateLayout
+from .pytree import pytree_dataclass, static_field
 
 F64 = jnp.float64
 
 
-@struct.dataclass
+@pytree_dataclass
 class FilterState:
     # --- scalar bookkeeping ---
     time: jnp.ndarray  # () current state time (propagated-to)
@@ -80,7 +79,7 @@ class FilterState:
     # --- covariance ---
     cov: jnp.ndarray  # (D,D)
 
-    layout: StateLayout = struct.field(pytree_node=False)
+    layout: StateLayout = static_field()
 
 
 def make_state(layout: StateLayout, priors: dict | None = None) -> FilterState:

@@ -14,7 +14,7 @@ fixed-size.
 
 from __future__ import annotations
 
-from functools import partial
+from functools import partial, wraps
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +30,27 @@ from .state import FilterState, newest_clone_slot
 F64 = jnp.float64
 
 
+def _full_f32_dots(fn):
+    """Trace `fn` with f32 matmuls at full f32 precision.
+
+    The camera, line and wheel row functions run their heavy tensors in
+    `cam_dtype` (f32 by default) and rely on true f32 (~1e-3 px residual
+    precision).  On a GPU JAX's default f32 matmul precision may use TF32
+    (~3 decimal digits), which moved the post-update covariance of a
+    bench-shape frame 13x further from the f64 result than true f32 does;
+    "highest" keeps f32.  No effect on f64 dots or on CPU."""
+    @wraps(fn)
+    def traced(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+    return traced
+
+
 def marginalize_mask(state: FilterState, drop) -> FilterState:
     """Vectorized marginalization: zero rows/cols of every dropped clone slot.
 
     drop: (C,) bool.  Replaces per-slot `marginalize_clone` calls with one
-    masked outer product (TPU idiom: no loop, no dynamic shapes).
+    masked outer product (no loop, no dynamic shapes).
     """
     lo = state.layout
     D = lo.dim
@@ -83,9 +99,9 @@ def fused_step(
 
     cam_dtype: dtype of the heavy per-feature camera tensors (Jacobian
     stacks, gate, compression).  f32 keeps residual precision at ~1e-3 px —
-    far below the pixel noise — while the f64-emulation cost on TPU applies
-    only to the tiny covariance-level algebra.  The compressed system is
-    promoted back to f64 before the EKF update.
+    far below the pixel noise — while the covariance-level algebra stays
+    f64.  The compressed system is promoted back to f64 before the EKF
+    update.
     """
     lo: StateLayout = state.layout
 
@@ -100,31 +116,6 @@ def fused_step(
         state, obs_uv, obs_uvn, obs_slot, obs_valid, sigma_pix, chi2_mult,
         model, cam_dtype)
     return state, metrics
-
-
-def _pallas_gram_rows(Hx, Hf, r, rowmask, cov, sigma, chi2_mult, resid_cap,
-                      interpret: bool, as_gram: bool = False):
-    """Route per-feature systems through the fused Pallas gate kernel
-    (ops/msckf_kernel.py): whiten -> nullspace -> chi2 gate -> Gram, with
-    the covariance VMEM-resident, then factor the Gram into compressed
-    unit-noise rows.  Returns (Hc (D,D) f64, rc, cmask, feat_ok, n_rows) —
-    or the raw unit-noise Gram (G, c, None, feat_ok, n_rows) with
-    `as_gram` (the joint update sums per-sensor Grams and factors once)."""
-    from ..ops.msckf_kernel import gram_gate_fused
-
-    M = Hx.shape[1]
-    f32 = jnp.float32
-    gate_vec = (jnp.asarray(_CHI2_NP[: M + 1]).astype(f32)
-                * jnp.asarray(chi2_mult, f32))
-    w = jnp.full(r.shape, 1.0, dtype=f32) / jnp.asarray(sigma, f32)
-    G, c, feat_ok, _chi = gram_gate_fused(
-        Hx, Hf, r, rowmask, w, cov.astype(f32), gate_vec,
-        resid_cap, interpret=interpret)
-    n_rows = jnp.sum(rowmask & feat_ok[:, None])
-    if as_gram:
-        return G.astype(F64), c.astype(F64), None, feat_ok, n_rows
-    Hc, rc, cmask = ekf.compress_from_gram(G.astype(F64), c.astype(F64))
-    return Hc, rc, cmask, feat_ok, n_rows
 
 
 def _rows_to_gram(H, r, mask, sigma2):
@@ -145,10 +136,10 @@ def _rows_to_gram(H, r, mask, sigma2):
     return G, c
 
 
+@_full_f32_dots
 def _camera_msckf_rows(
     state: FilterState, obs_uv, obs_uvn, obs_slot, obs_valid,
     sigma_pix, chi2_mult, model: int, cam_dtype,
-    use_pallas: bool = False, pallas_interpret: bool = False,
     as_gram: bool = False,
 ):
     """The point-MSCKF slice of the fused step (triangulate -> systems ->
@@ -177,19 +168,6 @@ def _camera_msckf_rows(
     )
     rowmask = rowmask & ok[:, None]
     sigma2 = sigma_pix**2
-    if use_pallas:
-        sigma = jnp.sqrt(jnp.asarray(sigma2, dtype=F64))
-        # the kernel sees whitened rows: the XLA path's raw-residual cap of
-        # 20 px becomes 20/sigma in whitened units
-        Hc, rc, cmask, feat_ok, n_rows = _pallas_gram_rows(
-            Hx, Hf, r, rowmask, state.cov, sigma, chi2_mult, 20.0 / sigma,
-            pallas_interpret, as_gram=as_gram)
-        metrics = {
-            "accepted": jnp.sum(feat_ok),
-            "rows": n_rows,
-            "avg_reproj": jnp.mean(jnp.where(ok, avg_err, 0.0)),
-        }
-        return Hc, rc, cmask, metrics
     chi2_table = jnp.asarray(_CHI2_NP).astype(cd)
     Hn, rn, rowvalid, feat_ok = cam_helper.msckf_project_and_gate(
         Hx, Hf, r, rowmask, state.cov.astype(cd), jnp.asarray(sigma2, dtype=cd),
@@ -242,6 +220,7 @@ def _bound_times(state: FilterState, ts):
             lam.reshape(ts.shape), cov.reshape(ts.shape))
 
 
+@_full_f32_dots
 def _camera_msckf_rows_interp(
     state: FilterState, obs_uv, obs_uvn, obs_t, obs_valid,
     sigma_pix, chi2_mult, model: int, cam_dtype,
@@ -311,6 +290,7 @@ def _camera_msckf_rows_interp(
     return Hc.astype(F64) / sigma, rc.astype(F64) / sigma, cmask, metrics
 
 
+@_full_f32_dots
 def _camera_msckf_rows_stereo(
     state: FilterState, obs_uv, obs_uvn, obs_slot, obs_valid,
     r_uv, r_uvn, r_valid,
@@ -393,10 +373,10 @@ def _camera_msckf_update(
     return state, metrics
 
 
+@_full_f32_dots
 def _line_msckf_rows(
     state: FilterState, line_uv, line_uvn, line_slot, line_valid,
     sigma_line, chi2_mult, cam_dtype=jnp.float64,
-    use_pallas: bool = False, pallas_interpret: bool = False,
     as_gram: bool = False,
 ):
     """Line slice of the fused step: two-plane Plücker triangulation ->
@@ -429,12 +409,6 @@ def _line_msckf_rows(
     absr = jnp.abs(r) * rowmask
     r_mean = jnp.sum(absr, axis=1) / jnp.maximum(jnp.sum(rowmask, axis=1), 1)
     rowmask = rowmask & (r_mean < 2.5 * sigma_line)[:, None]
-    if use_pallas:
-        sigma = jnp.sqrt(jnp.asarray(sigma2, dtype=F64))
-        Hc, rc, cmask, line_ok, _n = _pallas_gram_rows(
-            Hx, Hl, r, rowmask, state.cov, sigma, chi2_mult, 20.0 / sigma,
-            pallas_interpret, as_gram=as_gram)
-        return Hc, rc, cmask, jnp.sum(line_ok)
     chi2_table = jnp.asarray(_CHI2_NP).astype(cd)
     Hn, rn, rowvalid, line_ok = cam_helper.msckf_project_and_gate(
         Hx, Hl, r, rowmask, state.cov.astype(cd), jnp.asarray(sigma2, dtype=cd),
@@ -465,6 +439,7 @@ def _line_msckf_update(
     return state, n_ok
 
 
+@_full_f32_dots
 def _wheel_rows(
     state: FilterState, slot0, slot1, wheel_t, wheel_m1, wheel_m2, wheel_valid,
     wheel_noise, chi2_mult, wheel_type: int, preint_dtype=F64,
@@ -476,8 +451,7 @@ def _wheel_rows(
     UpdaterWheel::try_update/update, UpdaterWheel.cpp:36-140).
 
     preint_dtype: internal precision of the preintegration (interval-local
-    math; f32 keeps ~1e-6 relative error and skips the emulated-f64 cost —
-    see preintegrate_3d).  The linear system / whitening stay f64 (they mix
+    math; f32 keeps ~1e-6 relative error — see preintegrate_3d).  The linear system / whitening stay f64 (they mix
     world-scale clone positions)."""
     lo: StateLayout = state.layout
     nw, nv, npp = wheel_noise
@@ -583,8 +557,7 @@ def _wheel_update_fused(
 
 @partial(
     jax.jit,
-    static_argnames=("model", "window_size", "cam_dtype", "wheel_type",
-                     "use_pallas", "pallas_interpret"),
+    static_argnames=("model", "window_size", "cam_dtype", "wheel_type"),
 )
 def fused_step_full(
     state: FilterState,
@@ -595,7 +568,6 @@ def fused_step_full(
     gravity, sigmas, sigma_pix, chi2_mult, sigma_line, wheel_noise,
     model: int = 0, window_size: float = 1.0, cam_dtype=jnp.float64,
     wheel_type: int = wheel_up.W3D_ANG,
-    use_pallas: bool = False, pallas_interpret: bool = False,
 ):
     """One full PL-VIWO frame in ONE jit dispatch: propagate + clone + point
     MSCKF + line update + wheel preintegration update.
@@ -617,7 +589,7 @@ def fused_step_full(
     state = ekf.augment_clone(state)
     slot1 = newest_clone_slot(state)  # the clone just inserted (t = t_new)
 
-    # JOINT multi-sensor update (TPU-first design; the reference updates
+    # JOINT multi-sensor update (the reference updates
     # sensor-by-sensor, UpdaterCamera then lines then wheel, re-linearizing
     # between — here all sensors' unit-noise Gram systems are built at the
     # same pre-update state, SUMMED, and factored ONCE into compressed rows
@@ -627,12 +599,10 @@ def fused_step_full(
     # the per-frame correction and regression-tested).
     G1, c1, _, metrics = _camera_msckf_rows(
         state, obs_uv, obs_uvn, obs_slot, obs_valid, sigma_pix, chi2_mult,
-        model, cam_dtype, use_pallas=use_pallas,
-        pallas_interpret=pallas_interpret, as_gram=True)
+        model, cam_dtype, as_gram=True)
     G2, c2, _, lines_accepted = _line_msckf_rows(
         state, line_uv, line_uvn, line_slot, line_valid, sigma_line, chi2_mult,
-        cam_dtype=cam_dtype, use_pallas=use_pallas,
-        pallas_interpret=pallas_interpret, as_gram=True)
+        cam_dtype=cam_dtype, as_gram=True)
     Hw, rw, mw, wheel_accepted = _wheel_rows(
         state, slot0, slot1, wheel_t, wheel_m1, wheel_m2, wheel_valid,
         wheel_noise, chi2_mult, wheel_type, preint_dtype=cam_dtype)

@@ -7,7 +7,7 @@ augmentation and marginalization; camera feeds append tracks and trigger the
 MSCKF update at clone times (the *intended* flow — the reference snapshot's
 feed->try_update call is dead code, defect #2 in SURVEY.md).
 
-Division of labor (TPU idiom): all per-message math is jitted device code on
+Division of labor: all per-message math is jitted device code on
 fixed-size padded arrays; this module is thin host bookkeeping (buffers,
 track stores, clone-slot timetables).
 """
@@ -423,7 +423,10 @@ class VioSystem:
             # (host-side GpsUpdater) has completed: pending fixes covered by
             # this frame are consumed here as padded arrays (reference runs
             # per-fix EKF updates, UpdaterGPS.cpp:165-270; the Gram-sum
-            # design makes 3 rows/fix nearly free)
+            # design makes 3 rows/fix nearly free).  The GPS slice is
+            # compiled in whenever GPS is enabled — before the init every
+            # fix slot is invalid (zero rows) — so the frame program does
+            # not recompile when the init completes.
             use_gps_fused = self.gps is not None and self.gps.initialized
             GPS_PAD = 4
             gt = np.full((GPS_PAD,), t, dtype=np.float64)
@@ -460,7 +463,7 @@ class VioSystem:
                 min_px_dist=op.cam.min_px_dist,
                 use_wheel=op.wheel.enabled, use_lines=op.cam.use_lines,
                 lk_conv=op.cam.fused_lk_conv,
-                use_gps=use_gps_fused, gps_t=jnp.asarray(gt),
+                use_gps=self.gps is not None, gps_t=jnp.asarray(gt),
                 gps_p=jnp.asarray(gp), gps_valid=jnp.asarray(gv),
                 sigma_gps=op.gps.noise if self.gps is not None else 3.0,
                 gps_chi2_mult=op.gps.chi2_mult if self.gps is not None
@@ -702,7 +705,7 @@ class VioSystem:
 
     def _apply_joint_rows(self):
         """Apply the frame's collected multi-sensor rows as ONE compress +
-        EKF update (TPU-first design, mirrors fused_step_full's joint
+        EKF update (mirrors fused_step_full's joint
         update; the reference re-linearizes between per-sensor updates,
         UpdaterCamera then lines then UpdaterWheel — differences are second
         order in the per-frame correction and regression-tested)."""

@@ -1,1 +1,1 @@
-"""L0 math substrate: Lie ops, camera models, chi2 tables, Pallas kernels."""
+"""L0 math substrate: Lie ops, camera models, chi2 tables, image ops."""

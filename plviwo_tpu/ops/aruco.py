@@ -3,12 +3,12 @@
 The reference delegates marker detection to `cv::aruco::detectMarkers` and
 feeds each tag's 4 corners into the FeatureDatabase with stable ids
 `tag_id + n * max_tag_id` (TrackAruco.cpp:120-150).  This module rebuilds the
-*detector* TPU-first instead of wrapping a CPU library:
+*detector* as batched array code instead of wrapping a CPU library:
 
 - a deterministic binary tag family (6x6 cells: black border + 4x4 code bits,
   min pairwise Hamming distance under all 4 rotations);
 - detection = ONE multi-channel convolution of the image against a
-  rotation x scale bank of zero-mean border templates (the MXU-idiomatic
+  rotation x scale bank of zero-mean border templates (the batched
   replacement for contour chasing), local-std-normalized to an NCC score;
 - peak extraction with cross-channel non-max suppression (fixed-iteration
   fori_loop, no data-dependent shapes);

@@ -10,7 +10,7 @@ over (...,2) point arrays and an (8,) intrinsics vector
 
 (radtan: d = [k1 k2 p1 p2]; equi: d = [k1 k2 k3 k4]).  Undistortion is a
 fixed-iteration Newton/fixed-point solve (no data-dependent loops), which is
-the TPU idiom replacing OpenCV's `undistortPoints` iteration.
+the fixed-shape replacement for OpenCV's `undistortPoints` iteration.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched binary descriptors + matching (L1 kernels).
 
-TPU-native rebuild of the reference's descriptor front-end
+Batched rebuild of the reference's descriptor front-end
 (`ov_core::TrackDescriptor`, track/TrackDescriptor.cpp: ORB descriptors +
 robust ratio-test matching).  Instead of OpenCV's per-keypoint loops:
 
@@ -9,8 +9,8 @@ robust ratio-test matching).  Instead of OpenCV's per-keypoint loops:
   (N, B) bool tensors, no per-feature control flow.  (No orientation
   normalization: frame-to-frame tracking sees small in-plane rotation; the
   reference's ORB orientation mainly serves wide-baseline matching.)
-- Matching: the full Hamming-distance matrix is one XOR-popcount einsum on
-  the MXU, followed by vectorized ratio test + mutual-best + distance gate
+- Matching: the full Hamming-distance matrix is one XOR-popcount einsum,
+  followed by vectorized ratio test + mutual-best + distance gate
   (TrackDescriptor's robust_match logic, batched).
 """
 

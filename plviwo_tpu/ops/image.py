@@ -3,7 +3,7 @@
 Replaces the OpenCV primitives of the reference tracker
 (`ov_core/src/track/TrackKLT.cpp:48-76`: histogram equalization +
 `buildOpticalFlowPyramid`) with XLA-native batched ops: separable Gaussian
-blur + decimation for the pyramid (convolutions ride the MXU), Scharr
+blur + decimation for the pyramid, Scharr
 gradients, and a fixed-bin histogram equalization.
 
 Images are (H, W) float32 in [0, 1].  All functions jit/vmap cleanly.
@@ -22,11 +22,9 @@ F32 = jnp.float32
 def _sep_conv(img, kx, ky):
     """Separable 2-D 'same' (zero-pad) convolution as shifted multiply-adds.
 
-    XLA lowers a single-channel `conv_general_dilated` to an im2col matmul
-    with a 1-wide contraction — the MXU runs at ~1/128 utilization and the
-    measured cost at 640x480 was ~100x off the bandwidth roofline.  A K-tap
-    separable filter is instead K static shifted slices per axis, pure VPU
-    multiply-accumulates that XLA fuses into one pass over the image."""
+    A single-channel `conv_general_dilated` can lower to an im2col matmul
+    with a 1-wide contraction.  A K-tap separable filter is instead K static
+    shifted slices per axis, plain elementwise multiply-accumulates that XLA fuses into one pass over the image."""
     H, W = img.shape
     ny, nx = ky.shape[0], kx.shape[0]
     ry, rx = ny // 2, nx // 2
@@ -54,7 +52,7 @@ def pyr_down(img):
     Decimation is fused into the taps: the blurred value is only formed AT
     the even output positions (the vertical pass alone already drops to
     H/2 rows), so the full-resolution blur is never materialized — ~4x less
-    VPU work and bandwidth than blur-then-slice."""
+    arithmetic and bandwidth than blur-then-slice."""
     H, W = img.shape
     H2, W2 = H // 2, W // 2
     p = jnp.pad(img, ((2, 2), (0, 0)))
@@ -104,13 +102,12 @@ def hist_equalize_quantile(img, knots: int = 17):
     """Gather-free histogram equalization: piecewise-linear CDF through
     `knots` quantiles, applied as shifted clamp-accumulates.
 
-    `hist_equalize` costs a 256-bin scatter-add + a full-image LUT gather —
-    both scalar-unit paths on TPU (measured 28 ms/frame at 640x480, the
-    single largest cost of the images-in step).  The equalized output only
+    `hist_equalize` costs a 256-bin scatter-add + a full-image LUT gather.
+    The equalized output only
     normalizes contrast for tracking, so a 16-segment linear CDF is
     functionally equivalent:  out(p) = cdf(p) ~= (1/(K-1)) * sum_k
     clamp01((p - q_k)/(q_{k+1} - q_k)) — one sort for the quantiles, then
-    pure VPU arithmetic on the image.
+    pure elementwise arithmetic on the image.
 
     The quantiles come from a 4x-strided subsample: a full-image
     `jnp.quantile` sorts every pixel (307k elements at 640x480 — the
@@ -132,7 +129,7 @@ def shi_tomasi_score(img, window: int = 3):
     The reference detects with grid-bucketed FAST (Grider_GRID); FAST's
     circle-of-16 branch pattern is hostile to vector units, while the
     Shi-Tomasi structure tensor is three convolutions + an eigenvalue formula
-    — the TPU-idiomatic equivalent with the same role (corner strength for
+    — the array-friendly equivalent with the same role (corner strength for
     grid top-off detection).
     """
     gx, gy = gradients(img)

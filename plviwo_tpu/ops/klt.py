@@ -205,11 +205,9 @@ def pyramidal_lk(prev_pyr, next_pyr, uv_prev, valid, levels: int, half: int = 7,
 # gather-free pyramidal LK (patch + shifted-MAC bilinear sampling)
 # ---------------------------------------------------------------------------
 #
-# TPU-first reformulation of `_lk_level` (VERDICT round-3 item 1): XLA lowers
-# the vmapped `bilinear_sample` calls to SCALAR gathers — ~1.3M gathered
-# elements per level iteration at N=128 — which run on the scalar unit and
-# dominate the whole images-in frame (measured ~60 ms/frame/seq at B=16).
-# Here each feature instead extracts ONE contiguous (PS, PS) patch per level
+# Gather-free reformulation of `_lk_level`: XLA lowers the vmapped
+# `bilinear_sample` calls to gathers — ~1.3M gathered elements per level
+# iteration at N=128.  Here each feature instead extracts ONE contiguous (PS, PS) patch per level
 # (a vmapped dynamic_slice = N block reads), and every subsequent bilinear
 # window sample becomes a separable weighted sum of STATIC shifted slices of
 # that patch:
@@ -218,7 +216,7 @@ def pyramidal_lk(prev_pyr, next_pyr, uv_prev, valid, levels: int, half: int = 7,
 #
 # with u = (window start offset inside the patch) — only two taps are ever
 # nonzero, but evaluating all KS taps as static slices turns the gather into
-# pure VPU multiply-accumulates (~50 MFLOP/frame: free).  The drift budget D
+# elementwise multiply-accumulates (~50 MFLOP/frame).  The drift budget D
 # bounds how far the iterations may move from the initial guess; beyond it
 # the feature is marked failed (the same features fail the error gate in the
 # gather formulation).
@@ -227,11 +225,9 @@ def pyramidal_lk(prev_pyr, next_pyr, uv_prev, valid, levels: int, half: int = 7,
 def _patch_sample(P, u_y, u_x, out_h: int, out_w: int, D: int):
     """Separable shifted-MAC bilinear window sample from per-feature patches.
 
-    P: (PS, PS, N) patches — FEATURE-TRAILING layout: the feature axis sits
-    in the TPU lane dimension (N is a multiple of 128 in practice), so every
-    tap is a perfectly lane-parallel VPU multiply-accumulate.  The earlier
-    (N, PS, PS) layout put the 29-wide patch axis in lanes (~25%
-    utilization after padding to 128).  u_y/u_x: (N,) window start offsets
+    P: (PS, PS, N) patches — FEATURE-TRAILING layout: the feature axis is
+    the minor (contiguous) dimension, so every tap is one elementwise
+    multiply-accumulate across all features.  u_y/u_x: (N,) window start offsets
     inside the patch (continuous).  Returns (out_h, out_w, N) sampled at
     rows u_y + r, cols u_x + c.  Exact bilinear wherever
     0 <= u <= PS - out - 1.
@@ -372,7 +368,7 @@ def _eight_point(x1, x2):
         [u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, jnp.ones_like(u1)],
         axis=-1,
     )  # (8,9)
-    # nullspace via eigh of A^T A (svd-free; TPU-friendly)
+    # nullspace via eigh of A^T A (svd-free)
     _, V = jnp.linalg.eigh(A.T @ A)
     F = V[:, 0].reshape(3, 3)
     return F

@@ -1,8 +1,7 @@
-"""Small-matrix linear algebra for the TPU f64 path (L0).
+"""Small-matrix linear algebra for the f64 filter core (L0).
 
-XLA on TPU implements Cholesky/QR/eigh/triangular_solve for f64 (emulated)
-but NOT the LU custom-calls behind `jnp.linalg.solve` / `inv`.  The filter
-core therefore uses:
+The filter core avoids the LU factorizations behind `jnp.linalg.solve` /
+`inv` and uses:
   - closed-form (Cramer) batched 3x3 solves for triangulation,
   - Cholesky solves for PSD systems,
   - QR + triangular_solve for small general inverses.
@@ -42,7 +41,7 @@ def eigvals_sym3x3(A):
     """Closed-form eigenvalues of symmetric (...,3,3), ascending.
 
     Trigonometric method (Smith): no iterative QR — batched elementwise math
-    only (the TPU replacement for `jnp.linalg.eigvalsh` in hot conditioning
+    only (the replacement for `jnp.linalg.eigvalsh` in hot conditioning
     gates).
     """
     a00 = A[..., 0, 0]
@@ -89,10 +88,10 @@ def solve_psd(S, b):
 def chol_unrolled(S):
     """Straight-line batched Cholesky for SMALL static n.
 
-    XLA's `jnp.linalg.cholesky` on TPU runs a blocked sequential algorithm
-    that is ~4x slower on many small matrices (measured 13.7 vs 3.2 ms on
-    (2560, 40, 40) f32 — the MSCKF gate's shape).  Unrolling the n column
-    steps as straight-line batched VPU code removes that overhead; n is a
+    XLA's `jnp.linalg.cholesky` runs a blocked sequential algorithm; on many
+    small matrices (e.g. (2560, 40, 40) f32 — the MSCKF gate's shape)
+    unrolling the n column steps as straight-line batched code avoids its
+    per-step overhead; n is a
     Python int so trace size stays bounded (gate systems are <= ~40 rows).
     Masked/padded diagonals are clamped away from zero.
     """
@@ -135,9 +134,7 @@ def inv_small(A):
 
 
 # ---------------------------------------------------------------------------
-# mixed-precision PSD solves (TPU: f64 cholesky/triangular_solve are emulated
-# scalar loops, measured 30-60x slower than f32 at D~160; f64 matmuls ride
-# the MXU at ~5x f32.  So: factor an *equilibrated f32* copy as a
+# mixed-precision PSD solves: factor an *equilibrated f32* copy as a
 # preconditioner and recover f64-level accuracy with f64-residual iterative
 # refinement — each sweep costs one f64 GEMM + two f32 triangular solves.)
 # ---------------------------------------------------------------------------
@@ -146,15 +143,14 @@ F32 = jnp.float32
 
 
 def dmatmul(a, b):
-    """Double-f32 ("split") matmul for f64 operands: ~4.5x faster than TPU's
-    emulated f64 GEMM at covariance scale (measured 7.2 -> 1.6 ms for
-    (64,162,162)@(162,162)), max relative error ~2e-7 vs true f64 — far below
+    """Double-f32 ("split") matmul for f64 operands: max relative error
+    ~2e-7 vs true f64 — far below
     the 3e-6 equilibrated jitter floor of the PSD solves and the measurement
     noise.  a = ah + al with ah = f32(a):
 
         a @ b ~= ah@bh + (ah@bl + al@bh)      (al@bl ~ eps32^2, dropped)
 
-    The three products run as f32 MXU GEMMs (precision=HIGHEST); the
+    The three products run as f32 GEMMs (precision=HIGHEST); the
     accumulation error of ah@bh (~K*eps32 worst case) dominates.  Non-f64
     inputs fall through to a plain matmul.
     """

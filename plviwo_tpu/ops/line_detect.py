@@ -2,7 +2,7 @@
 
 Replaces the reference's `cv::ximgproc::FastLineDetector` call
 (`TrackLSD.cpp:194-236`, run at half resolution with coords scaled back) with
-a TPU-shaped EDLines-style formulation (SURVEY.md section 7 "hard parts"):
+a fixed-shape EDLines-style formulation (SURVEY.md section 7 "hard parts"):
 
 1. Scharr gradients -> magnitude + orientation;
 2. anchor extraction: per-grid-cell strongest gradient pixels;
@@ -124,7 +124,7 @@ def detect_segments(img, grid: int = 16, n_anchors: int = 256,
 # gather-free detector: run-length doubling along snapped directions
 # ---------------------------------------------------------------------------
 #
-# TPU-first alternative to the anchor walk above.  The walk is a
+# Gather-free alternative to the anchor walk above.  The walk is a
 # `lax.scan` of 2 x max_steps sequential steps, each doing ~6 bilinear
 # samples (4-point gathers) over all anchors — ~220k scalar gathers per
 # frame, with a 96-deep sequential dependency.  Here the marching is

@@ -1,6 +1,6 @@
 """Distributed Schur-complement bundle adjustment (the north-star layer).
 
-The reference has no multi-node capability (SURVEY.md 2.10); the TPU-native
+The reference has no multi-node capability (SURVEY.md 2.10); the accelerator
 scaling design (BASELINE.json, SURVEY.md 5.8) couples sequence shards through
 a keyframe/landmark bundle adjustment whose landmark blocks are sharded over
 the device mesh:

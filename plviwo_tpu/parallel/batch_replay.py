@@ -7,7 +7,7 @@
 
 Usage:
     python -m plviwo_tpu.parallel.batch_replay --n-seq 4 --devices 8 \
-        --duration 12 --out BATCH_REPLAY_r03.json [--scaling]
+        --duration 12 --out BATCH_REPLAY.json [--scaling]
 
 Round 2 had `parallel/replay.py` and `parallel/ba.py` tested separately;
 this driver runs them as the single command BASELINE.json configs[4]

@@ -1,7 +1,7 @@
 """Sequence-sharded batch replay (distributed layer).
 
 The reference is a single-process CPU node (SURVEY.md section 2.10); its
-TPU-native scaling analogue (section 5.8) is *data-parallel sequence
+accelerator scaling analogue (section 5.8) is *data-parallel sequence
 sharding*: many independent replays (sequences or time segments) run as a
 batch, vmapped on-chip and `shard_map`-ed across a device mesh, with
 collectives aggregating cross-sequence metrics and (later) the distributed

@@ -18,7 +18,7 @@ import time
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="PL-VIWO TPU: KAIST replay")
+    ap = argparse.ArgumentParser(description="PL-VIWO: KAIST replay")
     ap.add_argument("--root", required=True, help="sequence root (contains sensor_data/)")
     ap.add_argument("--duration", type=float, default=None, help="seconds to replay")
     ap.add_argument("--wheel", action="store_true")
@@ -34,6 +34,9 @@ def main(argv=None):
     ap.add_argument("--platform", type=str, default=None)
     args = ap.parse_args(argv)
 
+    from .utils.compile_cache import set_gpu_xla_flags
+
+    set_gpu_xla_flags()
     if args.platform:
         import jax
 

@@ -5,7 +5,7 @@ keep tags with id <= max_tag_id, and emit each tag's 4 corners as point
 features with the stable id  `id_base + tag_id + n * max_tag_id`  (the
 reference uses tag_id + n*max_tag_id; id_base lifts the block above the KLT
 id space so both trackers can share one FeatureDatabase).  Detection itself
-is the TPU-native template-bank NCC detector (ops/aruco.py) instead of the
+is the batched template-bank NCC detector (ops/aruco.py) instead of the
 reference's cv::aruco wrap.
 """
 

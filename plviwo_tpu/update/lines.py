@@ -5,7 +5,7 @@ line triangulation (two strategies), the Plücker measurement model with
 endpoint-to-projected-line residuals, and batched FEJ linear systems for the
 EKF line update.
 
-TPU-first design decisions (vs the reference's per-line C++ loops):
+Design decisions (vs the reference's per-line C++ loops):
 - everything is batched over (L lines x O observations) padded arrays;
 - Jacobians come from `jax.jacfwd` of the residual function evaluated at the
   FEJ linearization point — replacing the reference's ~200-line hand-derived

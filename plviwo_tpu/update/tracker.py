@@ -7,7 +7,7 @@ of `ops/klt.py` and only id bookkeeping on the host.
 
 Feature slots are fixed-size (n_pts) with validity masks: a lost feature
 frees its slot; detection refills free slots.  This is the `std::vector`-free
-TPU idiom.
+fixed-shape idiom.
 """
 
 from __future__ import annotations

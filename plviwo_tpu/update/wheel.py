@@ -6,7 +6,7 @@ preintegration of the relative O-frame pose with noise covariance and
 intrinsic Jacobians, and the FEJ linear system against the two bounding
 clones (+ extrinsic/intrinsic calib columns).
 
-TPU shaping: preintegration is one `lax.scan` over a host-padded measurement
+Device shaping: preintegration is one `lax.scan` over a host-padded measurement
 stack (dt = 0 padding steps are identities); the linear system scatters into
 the fixed layout via one-hot clone masks; the dense 6x6 (or 3x3) preintegration
 covariance is whitened (Cholesky) so the masked diagonal-R EKF update applies.
@@ -83,7 +83,7 @@ def preintegrate_3d(ts, m1s, m2s, intr, noise_w, noise_v, noise_p,
     ts: (N,) times, repeated-last for padding (dt = 0 -> identity step).
     Returns (R_O0toO1 (3,3), p_O1inO0 (3,), Cov (6,6), dR_di (3,3), dp_di (3,3)).
 
-    TPU shaping (same reassociation as `propagator.propagate_arrays`): the
+    Device shaping (same reassociation as `propagator.propagate_arrays`): the
     RK4 orientation increment and the local-frame position increment are
     carry-independent, so the time recursion becomes an associative
     quaternion prefix scan + a cumulative sum of rotated increments; the
@@ -94,9 +94,7 @@ def preintegrate_3d(ts, m1s, m2s, intr, noise_w, noise_v, noise_p,
     dtype: internal precision.  Everything here is LOCAL to one clone
     interval (~0.1 s of relative motion), so no catastrophic cancellation of
     world-scale values exists; f32 internals carry ~1e-6 relative error —
-    far below the wheel measurement noise — and avoid the TPU's emulated-f64
-    cost (measured: the wheel slice was 14 ms of the 69 ms fused step at
-    B=64 with f64 internals).  dts are formed from the (possibly absolute)
+    far below the wheel measurement noise.  dts are formed from the (possibly absolute)
     timestamps in f64 FIRST, then cast.  Outputs are returned in f64.
     """
     N = ts.shape[0] - 1

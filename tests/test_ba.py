@@ -8,39 +8,7 @@ import pytest
 from plviwo_tpu.ops import lie
 from plviwo_tpu.parallel.ba import ba_refine
 from plviwo_tpu.parallel.replay import make_mesh
-
-CAM_Q = jnp.asarray([0.5, -0.5, 0.5, -0.5], dtype=jnp.float64)
-CAM_P = jnp.zeros(3, dtype=jnp.float64)
-
-
-def _make_problem(K=6, L=64, O=6, noise_px=0.001, pose_noise=0.05, seed=0):
-    rng = np.random.default_rng(seed)
-    # keyframes along a line, looking forward (+x in IMU frame -> camera z)
-    poses_p = np.stack([np.array([i * 1.0, 0.0, 0.0]) for i in range(K)])
-    poses_q = np.tile([0.0, 0.0, 0.0, 1.0], (K, 1))
-    lms = np.stack([
-        rng.uniform([K + 2.0, -6, -3], [K + 15.0, 6, 3]) for _ in range(L)
-    ])
-    obs_k = np.zeros((L, O), dtype=np.int32)
-    obs_uvn = np.zeros((L, O, 2))
-    obs_mask = np.zeros((L, O), dtype=bool)
-    R_ItoC = np.asarray(lie.quat_2_rot(CAM_Q))
-    for l in range(L):
-        ks = rng.choice(K, size=O, replace=False)
-        for j, k in enumerate(ks):
-            p_C = R_ItoC @ (lms[l] - poses_p[k])
-            if p_C[2] < 0.5:
-                continue
-            obs_k[l, j] = k
-            obs_uvn[l, j] = p_C[:2] / p_C[2] + rng.normal(0, noise_px, 2)
-            obs_mask[l, j] = True
-    # perturb initial guesses
-    poses_p_0 = poses_p + rng.normal(0, pose_noise, poses_p.shape)
-    poses_p_0[0] = poses_p[0]  # gauge
-    lms_0 = lms + rng.normal(0, 0.2, lms.shape)
-    return (poses_q, poses_p, lms), (poses_q.copy(), poses_p_0, lms_0), \
-        (obs_k, obs_uvn, obs_mask)
-
+from plviwo_tpu.sim.ba_problem import CAM_P, CAM_Q, make_ba_problem
 
 def _reproj_rms(pq, pp, lms, obs_k, obs_uvn, obs_mask):
     R_ItoC = np.asarray(lie.quat_2_rot(CAM_Q))
@@ -59,7 +27,7 @@ def _reproj_rms(pq, pp, lms, obs_k, obs_uvn, obs_mask):
 
 class TestBa:
     def test_converges_single_device(self):
-        gt, init, obs = _make_problem()
+        gt, init, obs = make_ba_problem()
         rms0 = _reproj_rms(init[0], init[1], init[2], *obs)
         pq, pp, lm, info = ba_refine(init[0], init[1], init[2], *obs,
                                      CAM_Q, CAM_P, mesh=None, iters=8)
@@ -76,7 +44,7 @@ class TestBa:
         assert err_p.max() < 0.01, err_p
 
     def test_sharded_matches_single(self):
-        gt, init, obs = _make_problem()
+        gt, init, obs = make_ba_problem()
         pq1, pp1, lm1, _ = ba_refine(init[0], init[1], init[2], *obs,
                                      CAM_Q, CAM_P, mesh=None, iters=4)
         mesh = make_mesh(8)

@@ -269,8 +269,8 @@ class TestNullspaceCompress:
         assert Hc.shape == (D, D)
         # information must be preserved: H^T H == Hc^T Hc, H^T r == Hc^T rc —
         # to the mixed-precision design tolerance (~3e-6 relative: equilibrated
-        # f32 Cholesky backward error + 3e-6 diagonal jitter; TPU f64 cholesky
-        # is emulated ~60x slower, so this trade is deliberate)
+        # f32 Cholesky backward error + 3e-6 diagonal jitter; a deliberate
+        # mixed-precision trade, see ops/linalg.py)
         G = np.asarray(H).T @ np.asarray(H)
         scale = np.abs(G).max()
         np.testing.assert_allclose(np.asarray(Hc).T @ np.asarray(Hc), G,

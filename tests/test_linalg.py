@@ -27,9 +27,9 @@ def test_dmatmul_accuracy_covariance_scale():
     ref = P @ H
     got = dmatmul(P, H)
     rel = float(jnp.max(jnp.abs(got - ref)) / jnp.max(jnp.abs(ref)))
-    # inside the PSD jitter floor (on TPU this also beats the default
-    # f32 GEMM — bf16 passes, ~3e-3 — by 4 orders of magnitude; on CPU the
-    # f32 GEMM is true f32 so no comparative assertion is meaningful)
+    # inside the PSD jitter floor (on a GPU this also beats a TF32 default
+    # f32 GEMM, ~1e-3, by orders of magnitude; on CPU the f32 GEMM is true
+    # f32 so no comparative assertion is meaningful)
     assert rel < 3e-6, rel
 
 

@@ -1,9 +1,7 @@
 """Quality A/B: anchor-walk vs run-length line detector in the fused loop.
 
-Round-4 VERDICT item 5: `detect_segments_runlen` shipped default-off
-pending this A/B.  The chip-side half is done (tools/profile_track_b.py:
-717.8 ms vs 10.0 ms per B=64 batch — 72x); this script settles the quality
-half: the 60-frame closed-loop fused_frame replay (the test_fused_frame
+`detect_segments_runlen` is the fused engine's default line detector; this
+script checks the quality side of that choice: the 60-frame closed-loop fused_frame replay (the test_fused_frame
 e2e) with each detector, over several seeds, reporting trajectory RMSE and
 line acceptance counts.
 
@@ -27,7 +25,7 @@ def run_loop(seed: int, n_frames: int, line_runlen: bool):
     from plviwo_tpu.core.frame import fused_frame, make_track_state
     from plviwo_tpu.core.layout import StateLayout
     from plviwo_tpu.sim.simulator import SimConfig, Simulator
-    from tests.test_fused_frame import _imu_window, _seed_state, _wheel_window
+    from plviwo_tpu.sim.fused_inputs import imu_window, seed_state, wheel_window
 
     F64 = jnp.float64
     cfg = SimConfig(duration=10.0, n_landmarks=350, n_lines=40,
@@ -35,7 +33,7 @@ def run_loop(seed: int, n_frames: int, line_runlen: bool):
     sim = Simulator(cfg)
     layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
     t0 = 1.0
-    state = _seed_state(sim, layout, t0)
+    state = seed_state(sim, layout, t0)
     ts = make_track_state(480, 640, n_pts=96, max_lines=16, max_obs=8)
     imu_t, imu_w, imu_a = sim.imu_stream()
     gravity = jnp.asarray([0.0, 0.0, 9.81])
@@ -47,8 +45,8 @@ def run_loop(seed: int, n_frames: int, line_runlen: bool):
     for i in range(n_frames):
         t = t0 + 0.1 * (i + 1)
         img = jnp.asarray(sim.render_frame(t))
-        it, iw, ia = _imu_window(imu_t, imu_w, imu_a, t_prev, t)
-        wt, wm1, wm2 = _wheel_window(sim, t_prev, t)
+        it, iw, ia = imu_window(imu_t, imu_w, imu_a, t_prev, t)
+        wt, wm1, wm2 = wheel_window(sim, t_prev, t)
         state, ts, m = fused_frame(
             state, ts, img, it, iw, ia, jnp.asarray(t, F64),
             wt, wm1, wm2, jnp.asarray(True),
@@ -81,8 +79,9 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/plviwo_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from plviwo_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache(min_compile_time_secs=0.5)
 
     rows = []
     for seed in args.seeds:

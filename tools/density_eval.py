@@ -4,8 +4,8 @@ The reference KAIST config tracks 1500 points/frame on a 15x15 grid
 (config_camera.yaml:11-21); the fused engine's capacity knob (n_pts slots,
 detection grid) had never been accuracy-validated above 128.  This runs
 the 60-frame closed-loop fused replay at a given density and reports
-trajectory RMSE + acceptance counts; the chip-side fps at the same
-density comes from `BENCH_IMG_PTS=<n> python bench.py`.
+trajectory RMSE + acceptance counts; the device fps at the same density
+comes from `BENCH_IMG_PTS=<n> python bench.py` on the GPU.
 
 Run: python tools/density_eval.py --n-pts 512 [--platform cpu]
 """
@@ -27,7 +27,7 @@ def run_loop(n_pts: int, max_lines: int, n_frames: int, seed: int):
     from plviwo_tpu.core.frame import fused_frame, make_track_state
     from plviwo_tpu.core.layout import StateLayout
     from plviwo_tpu.sim.simulator import SimConfig, Simulator
-    from tests.test_fused_frame import _imu_window, _seed_state, _wheel_window
+    from plviwo_tpu.sim.fused_inputs import imu_window, seed_state, wheel_window
 
     F64 = jnp.float64
     W, H = 640, 480
@@ -40,7 +40,7 @@ def run_loop(n_pts: int, max_lines: int, n_frames: int, seed: int):
     sim = Simulator(cfg)
     layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
     t0 = 1.0
-    state = _seed_state(sim, layout, t0)
+    state = seed_state(sim, layout, t0)
     ts = make_track_state(H, W, n_pts=n_pts, max_lines=max_lines, max_obs=8)
     imu_t, imu_w, imu_a = sim.imu_stream()
     gravity = jnp.asarray([0.0, 0.0, 9.81])
@@ -52,8 +52,8 @@ def run_loop(n_pts: int, max_lines: int, n_frames: int, seed: int):
     for i in range(n_frames):
         t = t0 + 0.1 * (i + 1)
         img = jnp.asarray(sim.render_frame(t))
-        it, iw, ia = _imu_window(imu_t, imu_w, imu_a, t_prev, t)
-        wt, wm1, wm2 = _wheel_window(sim, t_prev, t)
+        it, iw, ia = imu_window(imu_t, imu_w, imu_a, t_prev, t)
+        wt, wm1, wm2 = wheel_window(sim, t_prev, t)
         state, ts, m = fused_frame(
             state, ts, img, it, iw, ia, jnp.asarray(t, F64),
             wt, wm1, wm2, jnp.asarray(True),
@@ -87,8 +87,9 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/plviwo_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from plviwo_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache(min_compile_time_secs=0.5)
 
     for n in args.n_pts:
         r = run_loop(n, args.max_lines, args.frames, args.seed)

@@ -1,10 +1,10 @@
 """Segment profile of the images-in fused frame (round-3 perf attribution).
 
 Times each stage of core/frame.py separately on the same inputs the bench
-uses, vmapped over B sequences, so the 60 ms/frame measured by
+uses, vmapped over B sequences, so the frame time measured by
 tools/bench_frame.py decomposes into: equalize+pyramid, pyramidal LK,
 RANSAC, undistorts, grid detection, line detection+NMS+matching, and the
-filter slices.  Run on the TPU (default) or --platform cpu.
+filter slices.  Run on the GPU (default) or --platform cpu.
 """
 
 from __future__ import annotations

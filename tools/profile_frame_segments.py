@@ -1,13 +1,13 @@
 """Segment profile of the IMAGES-IN fused frame at bench shapes (round 4).
 
-Decomposes `core/frame.fused_frame` (the 392-fps headline unit) into
+Decomposes `core/frame.fused_frame` (the images-in bench unit) into
 timed segments — time update (propagate+marg+clone), front-end
 (track_frame), and the measurement tail (rows + joint update) — each as
 its own jitted vmapped dispatch over the SAME warmed-up states the bench
 uses, so the per-batch milliseconds add up to (roughly) the fused number
 plus fusion savings.
 
-Run on the TPU: `python tools/profile_frame_segments.py --b 64`.
+Run on the GPU: `python tools/profile_frame_segments.py --b 64`.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/plviwo_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from plviwo_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache(min_compile_time_secs=5.0)
     import jax.numpy as jnp
 
     from plviwo_tpu.core import ekf, propagator
@@ -45,7 +46,7 @@ def main():
     from plviwo_tpu.core.step import (_auto_marginalize, _camera_msckf_rows,
                                       _line_msckf_rows, _wheel_rows)
     from plviwo_tpu.sim.simulator import SimConfig, Simulator
-    from tests.test_fused_frame import _imu_window, _seed_state, _wheel_window
+    from plviwo_tpu.sim.fused_inputs import imu_window, seed_state, wheel_window
 
     F64 = jnp.float64
     W, H = 640, 480
@@ -54,7 +55,7 @@ def main():
     sim = Simulator(cfg)
     layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
     t0 = 1.0
-    state0 = _seed_state(sim, layout, t0)
+    state0 = seed_state(sim, layout, t0)
     ts0 = make_track_state(H, W, n_pts=args.n_pts, max_lines=24, max_obs=8)
     imu_t, imu_w, imu_a = sim.imu_stream()
     gravity = jnp.asarray([0.0, 0.0, 9.81])
@@ -146,9 +147,9 @@ def main():
         t = t0 + 0.1 * (i + 1)
         img = jax.device_put(jnp.asarray(sim.render_frame(t), jnp.float32))
         it, iw, ia = (jax.device_put(x)
-                      for x in _imu_window(imu_t, imu_w, imu_a, t_prev, t))
+                      for x in imu_window(imu_t, imu_w, imu_a, t_prev, t))
         wt, wm1, wm2 = (jax.device_put(x)
-                        for x in _wheel_window(sim, t_prev, t))
+                        for x in wheel_window(sim, t_prev, t))
         frames.append(img)
         ins.append((it, iw, ia, jax.device_put(jnp.asarray(t, F64)),
                     wt, wm1, wm2))

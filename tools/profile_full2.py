@@ -1,6 +1,6 @@
-"""Segment profile of the full fused step via IN-JIT scan chaining (the only
-relay-trustworthy micro-timing: the carried state feeds each iteration, so
-nothing dedupes and nothing serializes on per-dispatch round trips)."""
+"""Segment profile of the full fused step via IN-JIT scan chaining (the
+carried state feeds each iteration, so nothing serializes on per-dispatch
+round trips)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Isolate propagate's internal stages on the real chip (in-jit scan chaining)."""
+"""Isolate propagate's internal stages on the GPU (in-jit scan chaining)."""
 
 from __future__ import annotations
 

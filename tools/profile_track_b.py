@@ -2,12 +2,11 @@
 
 Round-4 follow-up to tools/profile_frame_segments.py: that profiler (and
 the pre-decorrelation bench) passed ONE shared image with in_axes=None, so
-XLA computed equalize/pyramid/detection once for all B sequences — the
-honest bench (per-sequence decorrelated images) dropped from 201.6 to
-73.4 fps.  This profiler batches the image axis everywhere and times each
+XLA computed equalize/pyramid/detection once for all B sequences, which
+overstates throughput.  This profiler batches the image axis everywhere and times each
 front-end stage as its own jitted vmapped dispatch at bench shapes.
 
-Run on the TPU: `python tools/profile_track_b.py --b 64`.
+Run on the GPU: `python tools/profile_track_b.py --b 64`.
 
 Fidelity note (round-4 ADVICE): stage inputs APPROXIMATE track_frame's —
 the LK stage uses bts.valid without ANDing has_prev, RANSAC is timed
@@ -41,8 +40,9 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/plviwo_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from plviwo_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache(min_compile_time_secs=5.0)
     import jax.numpy as jnp
 
     from plviwo_tpu.core.frame import (_attach_points, _segment_nms,
@@ -54,7 +54,7 @@ def main():
     from plviwo_tpu.ops import klt as klt_ops
     from plviwo_tpu.ops import line_detect as line_ops
     from plviwo_tpu.sim.simulator import SimConfig, Simulator
-    from tests.test_fused_frame import _imu_window, _seed_state, _wheel_window
+    from plviwo_tpu.sim.fused_inputs import imu_window, seed_state, wheel_window
 
     F64 = jnp.float64
     W, H = 640, 480
@@ -63,7 +63,7 @@ def main():
     sim = Simulator(cfg)
     layout = StateLayout(n_clones=14, n_cams=1, use_wheel=True)
     t0 = 1.0
-    state0 = _seed_state(sim, layout, t0)
+    state0 = seed_state(sim, layout, t0)
     ts0 = make_track_state(H, W, n_pts=args.n_pts, max_lines=24, max_obs=8)
     imu_t, imu_w, imu_a = sim.imu_stream()
     gravity = jnp.asarray([0.0, 0.0, 9.81])
@@ -95,9 +95,9 @@ def main():
         img = decor(jax.device_put(jnp.asarray(sim.render_frame(t),
                                                jnp.float32)), sub)
         it, iw, ia = (jax.device_put(x)
-                      for x in _imu_window(imu_t, imu_w, imu_a, t_prev, t))
+                      for x in imu_window(imu_t, imu_w, imu_a, t_prev, t))
         wt, wm1, wm2 = (jax.device_put(x)
-                        for x in _wheel_window(sim, t_prev, t))
+                        for x in wheel_window(sim, t_prev, t))
         frames.append(img)
         ins.append((it, iw, ia, jax.device_put(jnp.asarray(t, F64)),
                     wt, wm1, wm2))

@@ -1,7 +1,7 @@
 """Finer profile: measurement_compress vs ekf_update vs apply_dx, f64 vs f32.
 
-Determines whether the 409 ms compress+update segment is f64-emulation cost
-(f32 run would collapse) or latency-bound factorizations (f32 still slow).
+Determines whether the compress+update segment is f64 arithmetic cost (f32
+run would collapse) or latency-bound factorizations (f32 still slow).
 """
 
 from __future__ import annotations
